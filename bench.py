@@ -17,7 +17,10 @@ serial Fortran sweep (typical short-characteristics per-core rates),
 so vs_baseline = chip throughput / one reference core.
 
 Usage: python bench.py [--mesh 256] [--sources 4] [--iters 3] [--quick]
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
+Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", ...}
+with the device it ran on.  It needs a GPU; `--cpu` runs the same code on
+the CPU for a functional check and reports every device metric as
+"not measured".
 """
 
 import argparse
@@ -33,19 +36,57 @@ REFERENCE_CORE_UPDATES_PER_S = 1.0e7
 # image (BENCH_HISTORY.md), so vs_baseline is throughput / an optimistic
 # 1e7 updates/s serial-Fortran core, labeled as such in the JSON
 BASELINE_NOTE = "assumed 1e7 updates/s per serial Fortran core (no compiler on image; not measured)"
-# v5e (TPU v5 lite) HBM peak bandwidth
-HBM_PEAK_GBPS = {"tpu": 819.0}
+# Published device-memory bandwidth, keyed by jax device_kind.
+# Source: NVIDIA H100 Tensor Core GPU data sheet, SXM form factor
+# (80 GB HBM3, 3.35 TB/s).
+HBM_PEAK_GBPS = {"NVIDIA H100 80GB HBM3": 3350.0}
+NOT_MEASURED = "not measured"
 
 
-def roofline(platform: str, bytes_moved: float, elapsed_s: float):
-    """Achieved HBM bandwidth and peak fraction for a measured pass.
+def peak_hbm_gbps(device_kind: str) -> float:
+    """Published memory bandwidth of `device_kind`; an unknown device is
+    an error, never a default."""
+    try:
+        return HBM_PEAK_GBPS[device_kind]
+    except KeyError:
+        raise ValueError(f"no published peak for device_kind "
+                         f"{device_kind!r}; add it to HBM_PEAK_GBPS "
+                         f"with its source") from None
+
+
+def device_info(cpu: bool) -> dict:
+    """Platform, device_kind and count of the devices JAX sees.  Without
+    `cpu` anything but a GPU is an error: a measurement never falls back
+    to the CPU."""
+    import jax
+    devs = jax.devices()
+    info = {"platform": devs[0].platform, "kind": devs[0].device_kind,
+            "count": len(devs)}
+    if not cpu and info["platform"] != "gpu":
+        raise SystemExit(f"bench.py needs a GPU, found {info}; "
+                         f"pass --cpu for a functional CPU run")
+    print(f"# device platform={info['platform']} kind={info['kind']} "
+          f"count={info['count']}", file=sys.stderr)
+    return info
+
+
+def roofline(device_kind: str, bytes_moved: float, elapsed_s: float):
+    """Achieved device-memory bandwidth and peak fraction for a pass.
 
     bytes_moved is an ALGORITHMIC LOWER BOUND (compulsory traffic of the
     pass), so the fraction understates true utilization; it is the
     honest complement to the assumed vs_baseline anchor."""
-    peak = HBM_PEAK_GBPS.get(platform)
     gbps = bytes_moved / elapsed_s / 1e9
-    return gbps, (gbps / peak if peak else None)
+    return gbps, gbps / peak_hbm_gbps(device_kind)
+
+
+def _setup_jax(args):
+    import jax
+    if args.cpu:
+        jax.config.update("jax_platforms", "cpu")
+    from c2ray_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
+    return device_info(args.cpu)
 
 
 def full_step_bench(args):
@@ -58,11 +99,8 @@ def full_step_bench(args):
     raytracing pass.  Reported metric: grid-cell convergence-iterations/s
     = N^3 * niter / wall, with a phase breakdown on stderr.
     """
+    dev = _setup_jax(args)
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
     from c2ray_tpu.config import test_problem_config
@@ -73,9 +111,6 @@ def full_step_bench(args):
 
     n = args.mesh
     backend = args.backend
-    if backend == "auto":
-        backend = ("pallas" if jax.devices()[0].platform == "tpu"
-                   else "facemajor")
     batch = args.batch if args.batch else min(args.sources, 256)
     cfg = test_problem_config(mesh=n, dtype="float32", use_lls=True,
                               type_of_lls=1, cosmological=False,
@@ -152,13 +187,17 @@ def full_step_bench(args):
     _jax.block_until_ready(c)
     counts_ms = (time.time() - t0) * 1e3
 
+    measured = not args.cpu
     print(json.dumps({
         "metric": f"full_timestep_cell_iters_per_s_{n}cube",
-        "value": rate,
+        "value": rate if measured else NOT_MEASURED,
         "unit": "cell*conv_iters/s/chip",
-        "vs_baseline": rate / REFERENCE_CORE_UPDATES_PER_S,
+        "vs_baseline": (rate / REFERENCE_CORE_UPDATES_PER_S if measured
+                        else NOT_MEASURED),
         "baseline": BASELINE_NOTE,
-        "steady_ms_per_conv_iter": round(steady_per_iter * 1e3, 1),
+        "steady_ms_per_conv_iter": (steady_per_iter * 1e3 if measured
+                                    else NOT_MEASURED),
+        "device": dev,
     }))
     print(f"# FULL STEP mesh={n}^3 sources={args.sources} "
           f"steps={args.iters} total_iters={total_iters} "
@@ -168,7 +207,7 @@ def full_step_bench(args):
           f"fused_tail={chem_ms:.1f} ms counts={counts_ms:.1f} ms "
           f"compile+first_step={compile_s:.1f}s "
           f"mean_x={info.mean_xh1:.4f} "
-          f"platform={jax.devices()[0].platform} backend={backend}",
+          f"platform={dev['platform']} backend={backend}",
           file=sys.stderr)
 
 
@@ -179,18 +218,18 @@ def main():
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--quick", action="store_true",
                     help="64^3 single-source smoke benchmark")
-    ap.add_argument("--cpu", action="store_true", help="force CPU backend")
+    ap.add_argument("--cpu", action="store_true",
+                    help="functional run on the CPU (device metrics are "
+                         "reported as not measured)")
     ap.add_argument("--max-shell", type=int, default=None,
                     help="cap sweep radius (subbox analogue)")
     ap.add_argument("--bucket", type=int, default=0,
                     help="shell bucket width (0 = single full-plane loop)")
     ap.add_argument("--batch", type=int, default=0,
                     help="source batch size (0 = all sources in one vmap batch)")
-    ap.add_argument("--backend", default="auto",
-                    choices=("auto", "facemajor", "grid", "pallas"),
-                    help="sweep backend; auto = pallas on TPU (whole-sweep "
-                         "kernel, validated vs the XLA backends on "
-                         "hardware), facemajor elsewhere")
+    ap.add_argument("--backend", default="facemajor",
+                    choices=("facemajor", "grid"),
+                    help="wavefront march backend")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a jax.profiler trace of the timed "
                          "iterations to DIR")
@@ -207,13 +246,8 @@ def main():
     if args.full_step:
         return full_step_bench(args)
 
+    dev = _setup_jax(args)
     import jax
-    # persistent compilation cache: repeat benches skip the multi-minute
-    # remote compiles
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
     from c2ray_tpu.config import test_problem_config
@@ -222,9 +256,6 @@ def main():
 
     n = args.mesh
     backend = args.backend
-    if backend == "auto":
-        backend = ("pallas" if jax.devices()[0].platform == "tpu"
-                   else "facemajor")
     windowed = (args.max_shell is not None
                 and 2 * args.max_shell + 1 <= n - 1)
     if args.batch:
@@ -292,24 +323,33 @@ def main():
     # copies, transposes and LLS planes add real traffic on top)
     itemsize = 4
     bytes_moved = 4 * cells_per_source * args.sources * itemsize
-    platform = jax.devices()[0].platform
-    gbps, frac = roofline(platform, bytes_moved, elapsed)
 
+    if args.cpu:
+        print(json.dumps({
+            "metric": f"cell_source_sweep_updates_per_s_{n}cube",
+            "value": NOT_MEASURED, "unit": "updates/s/chip",
+            "vs_baseline": NOT_MEASURED, "baseline": BASELINE_NOTE,
+            "achieved_gbps_lower_bound": NOT_MEASURED,
+            "hbm_peak_fraction": NOT_MEASURED, "device": dev}))
+        print(f"# mesh={n}^3 sources={args.sources} functional CPU run "
+              f"(compile+first call {compile_s:.1f}s, not a device "
+              f"measurement)", file=sys.stderr)
+        return
+    gbps, frac = roofline(dev["kind"], bytes_moved, elapsed)
     print(json.dumps({
         "metric": f"cell_source_sweep_updates_per_s_{n}cube",
         "value": rate,
         "unit": "updates/s/chip",
         "vs_baseline": rate / REFERENCE_CORE_UPDATES_PER_S,
         "baseline": BASELINE_NOTE,
-        "achieved_gbps_lower_bound": round(gbps, 1),
-        "hbm_peak_fraction": round(frac, 4) if frac is not None else None,
+        "achieved_gbps_lower_bound": gbps,
+        "hbm_peak_fraction": frac,
+        "device": dev,
     }))
-    print(f"# mesh={n}^3 sources={args.sources} sweep={elapsed*1e3:.1f} ms "
-          f"compile={compile_s:.1f}s platform={platform} "
-          f"backend={backend} "
-          f"roofline>={gbps:.0f} GB/s"
-          + (f" ({100*frac:.1f}% of {HBM_PEAK_GBPS[platform]:.0f} GB/s HBM)"
-             if frac is not None else ""),
+    print(f"# mesh={n}^3 sources={args.sources} sweep={elapsed*1e3:.3f} ms "
+          f"compile={compile_s:.1f}s platform={dev['platform']} "
+          f"backend={backend} roofline>={gbps:.1f} GB/s "
+          f"({100*frac:.2f}% of {peak_hbm_gbps(dev['kind']):.0f} GB/s)",
           file=sys.stderr)
 
 

@@ -1,7 +1,7 @@
-"""c2ray_tpu: a TPU-native (JAX/XLA/Pallas) reionization radiative-transfer
-framework with the capabilities of C2-Ray3Dm (garrelt/C2-Ray3Dm).
+"""c2ray_tpu: a JAX/XLA reionization radiative-transfer framework with
+the capabilities of C2-Ray3Dm (garrelt/C2-Ray3Dm).
 
-Built from scratch for TPU hardware: the serial short-characteristics ray
+Built from scratch for accelerators: the serial short-characteristics ray
 trace becomes a causal wavefront sweep of Chebyshev shells, MPI source
 distribution becomes shard_map source sharding with psum rate reduction,
 and all per-cell physics (photon-conserving rate lookups, analytic doric

@@ -10,11 +10,13 @@ from __future__ import annotations
 import argparse
 import sys
 
+from .config import SWEEP_BACKENDS
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="c2ray_tpu",
-        description="TPU-native C2-Ray reionization radiative transfer")
+        description="C2-Ray reionization radiative transfer in JAX")
     ap.add_argument("input_file", nargs="?", default=None,
                     help="run-parameter file in the reference's ordered "
                          "input protocol (see inputs/input_example_test)")
@@ -48,7 +50,7 @@ def main(argv=None):
                          "(replicated grid + psum, the reference's MPI "
                          "layout), dom = slab-sharded rate physics, "
                          "halo = fully domain-decomposed grid (meshes "
-                         "beyond one chip's HBM)")
+                         "beyond one device's memory)")
     ap.add_argument("--src-devices", type=int, default=0,
                     help="devices on the source axis (0 = auto)")
     ap.add_argument("--dom-devices", type=int, default=0,
@@ -81,13 +83,16 @@ def main(argv=None):
                     choices=["auto", "table", "expsum"],
                     help="photoionization-rate evaluation path")
     ap.add_argument("--sweep-backend", default="facemajor",
-                    choices=["facemajor", "grid", "pallas"],
+                    choices=list(SWEEP_BACKENDS),
                     help="wavefront sweep backend")
     args = ap.parse_args(argv)
 
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
+
     # multi-host bootstrap (mpi.F90:83-178 analogue): no-op unless the
     # C2RAY_COORDINATOR / C2RAY_NUM_PROCESSES / C2RAY_PROCESS_ID env vars
-    # are set (or the TPU pod runtime auto-detects them)
+    # are set (or C2RAY_DISTRIBUTED=1 asks for launcher auto-detection)
     from .parallel import multihost
     multihost.init_distributed()
 

@@ -1,6 +1,6 @@
 """Physical constants and conversion factors (cgs units).
 
-TPU-native re-implementation of the constant layer of C2-Ray
+Re-implementation of the constant layer of C2-Ray
 (reference: /root/reference/cgsconstants.f90, cgsphotoconstants.f90,
 cgsastroconstants.f90:14-35, mathconstants.f90, abundances.f90:23-32,
 atomic.f90:23-25).  These are plain Python floats used both host-side

@@ -547,7 +547,8 @@ class C2RayDriver:
                 sim_time += actual_dt
                 self.history.append(dict(z=z_now, t=sim_time, **info._asdict()))
                 self._log(f"  t={sim_time / (1e6 * const.YEAR):8.2f} Myr "
-                          f"niter={info.niter} mean_x={info.mean_xh1:.5f} "
+                          f"niter={info.niter} converged={info.converged} "
+                          f"mean_x={info.mean_xh1:.5f} "
                           f"photcons={info.photon_stats.get('photon_cons', 0):.4f}")
 
                 # output cadence (C2Ray.F90:389-403)

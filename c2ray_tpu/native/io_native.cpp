@@ -1,4 +1,4 @@
-// Native (C++) binary-cube I/O for the TPU C2-Ray framework.
+// Native (C++) binary-cube I/O for the C2-Ray framework.
 //
 // The runtime equivalent of the reference's Fortran binary readers
 // (/root/reference/read_sm3d.f90, density_module.F90:203-243): production

@@ -1,8 +1,8 @@
 """Causal wavefront ray-sweep engine — the heart of the framework.
 
-TPU-native reformulation of the reference's per-source short-characteristics
-ray trace (/root/reference/evolve_source.F90 + evolve_point.F90:83-299 +
-column_density.f90:29-293).  The reference visits cells serially, marching
+Data-parallel reformulation of the reference's per-source
+short-characteristics ray trace (evolve_source.F90 + evolve_point.F90:83-299
++ column_density.f90:29-293).  The reference visits cells serially, marching
 outward from the source (6 axes / 12 planes / 8 octants under OpenMP).
 Here the same causal order becomes a *Chebyshev-shell wavefront*:
 
@@ -27,9 +27,8 @@ Here the same causal order becomes a *Chebyshev-shell wavefront*:
     table/mixture evaluation, LLS opacity losses, boundary-loss tallies,
     per-atom rate deposition) happens afterwards in ONE fully vectorized
     pass over the grid, recovering coldensh_in = coldensh_out - cell
-    column exactly.  This halves the sequential-path op count - critical
-    on TPU where per-op and per-loop-iteration overheads dominate small
-    plane work.
+    column exactly.  This halves the sequential-path op count: per-op
+    and per-loop-iteration overheads dominate small plane work.
   * Read-only fields (density, ionization) are pre-staged into face-major
     stacks (d, face, a, b) before the loop, so the loop body performs two
     dynamic slices instead of twelve.
@@ -124,10 +123,8 @@ def _stage_faces(x: jax.Array, d_max: int) -> jax.Array:
     c = n // 2
     slabs = []
     for (ax, s, _, _) in _FACES:
-        # Forward-stride slices only: slice(c, None, -1) is miscompiled by
-        # XLA:TPU under vmap with batch >= 4 when the staged array is
-        # materialized (see the matching note in _unstage_faces); the
-        # equivalent forward slice + standalone flip compiles correctly.
+        # Forward-stride slices + a standalone flip (see the matching
+        # note in _unstage_faces).
         idx: List = [slice(None)] * 3
         if s > 0:
             idx[ax] = slice(c, None)          # planes d = 0 .. n-1-c
@@ -177,8 +174,8 @@ def face_ownership_masks(n: int, c: int):
     [z+, z-, y+, y-, x+, x-] with z > y > x priority (the octant wedge
     rules of column_density.f90 reduced to a disjoint partition).
 
-    SHARED between the XLA unstage (_unstage_patch) and the Pallas
-    backend's _unstage_six: the two backends must keep an identical cell
+    Shared by _unstage_patch (grid backend) and _unstage_faces
+    (facemajor backend): both backends must keep an identical cell
     partition to stay bitwise-equal."""
     o = np.arange(n) - c
     oi = o[:, None, None]
@@ -227,7 +224,7 @@ def plan_buckets(cfg: RunConfig, max_shell: int) -> List[Tuple[int, int, int, in
     """Split shells 1..max_shell into buckets of static patch size.
 
     Returns (d_lo, d_hi, patch, lo) tuples; within a bucket a fori_loop
-    runs with patch-size-static shapes.  This is the TPU analogue of the
+    runs with patch-size-static shapes.  This is the analogue of the
     reference's growing subboxes (evolve_source.F90:128-136): small shells
     touch only small windows of the grid.
     """
@@ -355,10 +352,8 @@ def _column_step(d, cdo, *, cfg: RunConfig, ndhi_faces, lls_faces,
 
 def _mirror_perm(n: int, dtype) -> jax.Array:
     """Permutation matrix P with P[i,j]=1 iff i = (2c - j) mod n (c = n//2):
-    the reflection about the center index.  Built from iota (no captured
-    constants) so it traces inside Pallas kernels; applying it via the MXU
-    is exact (one nonzero per row) and a single op, unlike flip+roll
-    (lax.rev has no Mosaic lowering)."""
+    the reflection about the center index, applied as one contraction
+    (exact: one nonzero per row) instead of a flip + roll pair."""
     rows = lax.broadcasted_iota(jnp.int32, (n, n), 0)
     cols = lax.broadcasted_iota(jnp.int32, (n, n), 1)
     return ((rows + cols) % n == (2 * (n // 2)) % n).astype(dtype)
@@ -367,30 +362,32 @@ def _mirror_perm(n: int, dtype) -> jax.Array:
 def _mirror_b(x: jax.Array) -> jax.Array:
     """Reflect the last axis about the center index c=N//2 (b -> 2c-b).
 
-    precision=HIGHEST is required: the TPU MXU's default f32 precision
-    rounds operands to bf16, which corrupts the *selected values* of a
-    one-hot permutation product (~0.4% relative error measured at 256^3);
-    HIGHEST makes the one-hot contraction exact.
+    precision=HIGHEST is required: a default-precision float32 product
+    may round its operands to a reduced-mantissa format (TF32 on GPU
+    tensor cores, ~10 mantissa bits), which corrupts the *selected
+    values* of a one-hot permutation product; HIGHEST keeps the one-hot
+    contraction an exact copy.
     """
-    p = _mirror_perm(x.shape[-1], x.dtype)
-    return jax.lax.dot_general(x, p, (((x.ndim - 1,), (0,)), ((), ())),
-                               preferred_element_type=x.dtype,
-                               precision=lax.Precision.HIGHEST)
+    with jax.named_scope("mirror"):
+        p = _mirror_perm(x.shape[-1], x.dtype)
+        return jax.lax.dot_general(x, p, (((x.ndim - 1,), (0,)), ((), ())),
+                                   preferred_element_type=x.dtype,
+                                   precision=lax.Precision.HIGHEST)
 
 
 def _mirror_a(x: jax.Array) -> jax.Array:
     """Reflect the second-to-last axis about the center index."""
-    n = x.shape[-2]
-    p = _mirror_perm(n, x.dtype)   # symmetric
-    # out[.., i, b] = sum_a x[.., a, b] P[a, i]  (P symmetric)
-    out = jax.lax.dot_general(x, p, (((x.ndim - 2,), (0,)), ((), ())),
-                              preferred_element_type=x.dtype,
-                              precision=lax.Precision.HIGHEST)
-    return jnp.swapaxes(out, -1, -2)
+    with jax.named_scope("mirror"):
+        p = _mirror_perm(x.shape[-2], x.dtype)   # symmetric
+        # out[.., i, b] = sum_a x[.., a, b] P[a, i]  (P symmetric)
+        out = jax.lax.dot_general(x, p, (((x.ndim - 2,), (0,)), ((), ())),
+                                  preferred_element_type=x.dtype,
+                                  precision=lax.Precision.HIGHEST)
+        return jnp.swapaxes(out, -1, -2)
 
 
 def _wavefront_plane_update(prev, ndhi_p, lcol, d, cfg: RunConfig,
-                            dr, n: int, rowfix: bool = False):
+                            dr, n: int):
     """Face-major wavefront step: from the 6 previous dominant planes
     (6,N,N) compute the 6 new planes of shell d, wedge-fixed so that each
     face's plane is valid on its full |t| <= d read extent.
@@ -399,20 +396,9 @@ def _wavefront_plane_update(prev, ndhi_p, lcol, d, cfg: RunConfig,
     owned by the higher-priority face but appear in the other faces'
     planes; by the coordinate coincidence at the 45-degree wedges the
     transfers reduce to elementwise selects of (optionally mirrored /
-    transposed) sibling planes - no gathers, no dynamic indexing.
-
-    rowfix=False (XLA path): the mirrored/transposed variants are built
-    once for the whole (6,N,N) stack - 5 layout/matmul HLOs, minimal op
-    count for the op-latency-bound XLA loop.
-    rowfix=True (Pallas kernel): only the |t| = d rows/columns of the
-    mirrored planes are ever consumed, so the fixups extract exactly
-    those 10 vectors with one-hot matvecs (~10 N^2 MACs) instead of
-    full-plane mirror contractions (~9 N^3 MACs) - inside a fused kernel
-    op count is free and the MXU work drops ~400x.  Both produce
-    bitwise-identical planes (the one-hot contractions are exact copies).
-
-    Pure function of (6,N,N) arrays: shared by the XLA fori_loop path and
-    the Pallas whole-sweep kernel.
+    transposed) sibling planes - no gathers, no dynamic indexing.  The
+    mirrored/transposed variants are built once for the whole (6,N,N)
+    stack, so the per-face transfers become pure selects.
     """
     c = n // 2
     dtype = prev.dtype
@@ -420,8 +406,7 @@ def _wavefront_plane_update(prev, ndhi_p, lcol, d, cfg: RunConfig,
     df = d.astype(dtype) if hasattr(d, "astype") else jnp.asarray(d, dtype)
     inv_d = 1.0 / df
 
-    # transverse offset coordinates via iota (no captured constants, so the
-    # same function traces inside Pallas kernels)
+    # transverse offset coordinates via iota (no captured constants)
     ita = lax.broadcasted_iota(jnp.int32, (n, 1), 0) - c
     itb = lax.broadcasted_iota(jnp.int32, (1, n), 1) - c
     ta = ita.astype(dtype)
@@ -474,55 +459,6 @@ def _wavefront_plane_update(prev, ndhi_p, lcol, d, cfg: RunConfig,
     on_mb = (itb == -d)[None]
     pz, mz = newp[0], newp[1]
 
-    if rowfix:
-        # extract exactly the consumed |t| = d vectors via exact one-hot
-        # matvecs (precision=HIGHEST one-nonzero contraction = a copy):
-        #   py[:,c-d] = mirror_b(mz)[:,c-d] = mz[:,c+d]      (column copy)
-        #   my[:,c+d] = mirror_b(pz)[:,c+d] = pz[:,c-d]
-        #   px[c+d,:] = py_f[c+d,:] ; px[c-d,:] = my_f[c+d,:]  (row copies,
-        #   mx[c+d,:] = py_f[c-d,:] ; mx[c-d,:] = my_f[c-d,:]   via mirror_a)
-        #   px[:,c+d] = pz[c+d,:] ; px[:,c-d] = mz[c+d,:]    (transposed z
-        #   mx[:,c+d] = pz[c-d,:] ; mx[:,c-d] = mz[c-d,:]     rows)
-        hi = lax.Precision.HIGHEST
-        # the mirror permutation wraps mod n (_mirror_perm), so the +d
-        # source index is (c+d) mod n - visible at d = c where it aliases
-        # the -d row
-        dp_wrap = (d + c) % n - c
-        oh_a_p = (ita == dp_wrap).astype(dtype)        # (N,1) one-hots
-        oh_a_m = (ita == -d).astype(dtype)
-        oh_b_p = (itb == dp_wrap).astype(dtype)        # (1,N)
-        oh_b_m = (itb == -d).astype(dtype)
-
-        def col_of(p, oh_a):      # p[:, r] as (N,1), broadcasts along b
-            # (the transposed b one-hot IS the a one-hot of the same index)
-            return lax.dot_general(p, oh_a, (((1,), (0,)), ((), ())),
-                                   preferred_element_type=dtype, precision=hi)
-
-        def row_of(p, oh_b):      # p[r, :] as (1,N), broadcasts along a
-            return lax.dot_general(oh_b, p, (((1,), (0,)), ((), ())),
-                                   preferred_element_type=dtype, precision=hi)
-
-        def row_as_col(p, oh_a):  # p[r, :] as (N,1), for column writes
-            return lax.dot_general(p, oh_a, (((0,), (0,)), ((), ())),
-                                   preferred_element_type=dtype, precision=hi)
-
-        py = jnp.where(on_pb[0], pz,
-                       jnp.where(on_mb[0], col_of(mz, oh_a_p), newp[2]))
-        my = jnp.where(on_pb[0], col_of(pz, oh_a_m),
-                       jnp.where(on_mb[0], mz, newp[3]))
-        px = jnp.where(on_pa[0], row_of(py, oh_b_p),
-                       jnp.where(on_ma[0], row_of(my, oh_b_p), newp[4]))
-        mx = jnp.where(on_pa[0], row_of(py, oh_b_m),
-                       jnp.where(on_ma[0], row_of(my, oh_b_m), newp[5]))
-        px = jnp.where(on_pb[0], row_as_col(pz, oh_a_p),
-                       jnp.where(on_mb[0], row_as_col(mz, oh_a_p), px))
-        mx = jnp.where(on_pb[0], row_as_col(pz, oh_a_m),
-                       jnp.where(on_mb[0], row_as_col(mz, oh_a_m), mx))
-        return jnp.stack([pz, mz, py, my, px, mx])
-
-    # XLA path: layout ops are expensive relative to fused elementwise
-    # work, so the mirrored/transposed variants are built once for the
-    # whole (6,N,N) stack and the per-face transfers become pure selects.
     fb = _mirror_b(newp)               # b -> 2c-b for all faces at once
     fa = _mirror_a(newp)
     fab = _mirror_a(fb)
@@ -550,9 +486,7 @@ def _unstage_faces(planes: jax.Array, n: int, cdo0) -> jax.Array:
     planes: (D, 6, N, N) face planes for shells d = 1..D (the shell-0
     plane is never consulted: every face-ownership mask requires strict
     positivity along the dominant axis, so shell 0 contributes only the
-    source cell, set from cdo0 directly - and padding a zero plane in
-    front triggers an XLA:TPU concat+DUS fusion miscompile when the
-    planes come from the Pallas kernel's custom call at batch >= 4).
+    source cell, set from cdo0 directly).
 
     Inverse of _stage_faces restricted to each face's owned cells (the
     z>=y>=x tie-breaking partition); the source cell gets cdo0.  Cells
@@ -561,26 +495,12 @@ def _unstage_faces(planes: jax.Array, n: int, cdo0) -> jax.Array:
     c = n // 2
     pos_max = n - 1 - c
     d_max = planes.shape[0]
-    o = np.arange(n) - c
-    oi = o[:, None, None]
-    oj = o[None, :, None]
-    ok = o[None, None, :]
-    ai, aj, ak = abs(oi), abs(oj), abs(ok)
-    own = [
-        (ok > 0) & (ok >= ai) & (ok >= aj),
-        (ok < 0) & (-ok >= ai) & (-ok >= aj),
-        (oj > 0) & (oj >= ai) & (oj > ak),
-        (oj < 0) & (-oj >= ai) & (-oj > ak),
-        (oi > 0) & (oi > aj) & (oi > ak),
-        (oi < 0) & (-oi > aj) & (-oi > ak),
-    ]
-    # NOTE: only forward-stride regions below.  The natural formulation for
-    # the negative faces - region slice(c, stop, -1) with the slab in
-    # ascending-d order - is MISCOMPILED by XLA:TPU when this function is
-    # vmapped with batch >= 4 (observed at 256^3: wrong values throughout,
-    # bitwise-correct at batch <= 2/3 and on CPU).  Keeping the reversal as
-    # a standalone jnp.flip on the slab and writing forward-stride regions
-    # compiles correctly (validated bitwise vs single-source at batch 16).
+    own = face_ownership_masks(n, c)
+    # Only forward-stride regions below, with the reversal kept as a
+    # standalone jnp.flip on the slab: a reversed-stride region write
+    # under vmap has been miscompiled by an XLA backend before, and this
+    # form is pinned bitwise against single-source sweeps (tests and the
+    # on-card march cross-check).
     out = jnp.zeros((n, n, n), planes.dtype)
     for f, (ax, s, _, _) in enumerate(_FACES):
         navail = min(pos_max if s > 0 else c, d_max)    # planes d=1..navail
@@ -604,15 +524,17 @@ def compute_columns_facemajor(cfg: RunConfig, ndhi_c: jax.Array,
                               max_shell: int) -> jax.Array:
     """Face-major wavefront: the loop carries the previous shell's 6
     planes directly, so each iteration is one field slice + one fused
-    plane update + one stack write - the minimal sequential op count for
-    the XLA backend (per-op overhead dominates plane-sized work on TPU).
+    plane update + one stack write - the minimal sequential op count
+    (per-op overhead dominates plane-sized work).
     """
     n = cfg.mesh[0]
     c = n // 2
     dtype = ndhi_c.dtype
 
-    ndhi_faces = _stage_faces(ndhi_c, max_shell)
-    lls_faces = _stage_faces(lls_c, max_shell) if lls_c is not None else None
+    with jax.named_scope("stage"):
+        ndhi_faces = _stage_faces(ndhi_c, max_shell)
+        lls_faces = (_stage_faces(lls_c, max_shell) if lls_c is not None
+                     else None)
 
     cdo0 = ndhi_c[c, c, c] * (0.5 * sc.dr)
     prev0 = jnp.zeros((6, n, n), dtype).at[:, c, c].set(cdo0)
@@ -629,8 +551,10 @@ def compute_columns_facemajor(cfg: RunConfig, ndhi_c: jax.Array,
 
     # lax.scan slices the staged inputs and stacks the outputs natively
     # (no explicit dynamic_slice/update ops in the loop body)
-    _, planes = lax.scan(body, prev0, (ds, ndhi_faces[1:], lls_xs))
-    return _unstage_faces(planes, n, cdo0)
+    with jax.named_scope("march"):
+        _, planes = lax.scan(body, prev0, (ds, ndhi_faces[1:], lls_xs))
+    with jax.named_scope("stage"):
+        return _unstage_faces(planes, n, cdo0)
 
 
 def compute_columns(cfg: RunConfig, ndhi_c: jax.Array,
@@ -817,43 +741,34 @@ def sweep_single_source(cfg: RunConfig, tables: RadTables,
     max_shell = min(max_shell, min(d_max, cfg.max_subbox))
 
     if cfg.sweep_backend == "grid":
-        cdo = compute_columns(cfg, ndhi_c, sc, lls_c, max_shell)
+        with jax.named_scope("march"):
+            cdo = compute_columns(cfg, ndhi_c, sc, lls_c, max_shell)
     else:
         cdo = compute_columns_facemajor(cfg, ndhi_c, sc, lls_c, max_shell)
-    if slab is None:
-        return _rate_pass(cfg, tables, cdo, ndhi_c, nflux, sc, lls_c,
-                          max_shell, nflux_xray=nflux_xray)
-    x0, m = slab
-    row_ci = slab_rows(n, m, x0, src_x)
-    return _rate_pass(cfg, tables,
-                      _slab_rows_take(cdo, m, x0, src_x),
-                      _slab_rows_take(ndhi_c, m, x0, src_x),
-                      nflux, sc,
-                      _slab_rows_take(lls_c, m, x0, src_x),
-                      max_shell, row_ci=row_ci, nflux_xray=nflux_xray)
+    with jax.named_scope("deposition"):
+        if slab is None:
+            return _rate_pass(cfg, tables, cdo, ndhi_c, nflux, sc, lls_c,
+                              max_shell, nflux_xray=nflux_xray)
+        x0, m = slab
+        row_ci = slab_rows(n, m, x0, src_x)
+        return _rate_pass(cfg, tables,
+                          _slab_rows_take(cdo, m, x0, src_x),
+                          _slab_rows_take(ndhi_c, m, x0, src_x),
+                          nflux, sc,
+                          _slab_rows_take(lls_c, m, x0, src_x),
+                          max_shell, row_ci=row_ci, nflux_xray=nflux_xray)
 
 
 def windowed_prepass(cfg: RunConfig, ndens: jax.Array, xh_av1: jax.Array,
-                     lls_grid: Optional[jax.Array], radius: int,
-                     lane_margin: bool = False):
+                     lls_grid: Optional[jax.Array], radius: int):
     """Amortized per-call setup of the windowed sweep: the neutral-density
     field and its r-wide periodic pad (plus the LLS grid's, type-2 LLS).
     A window of half-width `radius` at grid position q is then the
-    contiguous (2r+1)^3 slice of the padded field with corner q.
-
-    lane_margin=True additionally zero-extends the last axis so the DMA
-    gather's tile-aligned covering blocks stay in bounds
-    (ops/window_pallas.py)."""
+    contiguous (2r+1)^3 slice of the padded field with corner q."""
     ndhi = neutral_density(cfg, ndens, xh_av1)
     ndhi_pad = jnp.pad(ndhi, radius, mode="wrap")
     lls_pad = (jnp.pad(lls_grid, radius, mode="wrap")
                if lls_grid is not None else None)
-    if lane_margin:
-        from .window_pallas import with_lane_margin
-        n = cfg.mesh[0]
-        ndhi_pad = with_lane_margin(ndhi_pad, n, radius)
-        if lls_pad is not None:
-            lls_pad = with_lane_margin(lls_pad, n, radius)
     return ndhi_pad, lls_pad
 
 
@@ -862,7 +777,7 @@ def windowed_batch(cfg: RunConfig, tables: RadTables, ndhi_pad: jax.Array,
                    nf: jax.Array, nfx: Optional[jax.Array],
                    sc: SweepScalars, radius: int,
                    acc: jax.Array, heat_acc: jax.Array,
-                   dma: bool = False, padded_acc: bool = False):
+                   padded_acc: bool = False):
     """Sweep ONE fixed-size batch of (2r+1)^3 windows and scatter-add the
     rates into the grid accumulators.
 
@@ -870,19 +785,18 @@ def windowed_batch(cfg: RunConfig, tables: RadTables, ndhi_pad: jax.Array,
     only on (radius, batch size) — never on how many sources currently
     occupy an adaptive-radius bucket — so the convergence loop's subbox
     promotions (evolve_source.F90:128-212) re-bucket sources without
-    triggering recompiles (measured ~10 s per new bucket capacity on the
-    remote-compile stack; BENCH_HISTORY round 3).
+    triggering recompiles.
 
     pos is in grid coords; ndhi_pad/lls_pad come from windowed_prepass.
     Zero-flux entries pad partial batches and contribute exactly zero.
     Returns (acc, heat_acc, photon_loss_sum, lls_loss_sum, per_window_loss).
 
-    padded_acc=True makes the XLA scatter path write into a PADDED
-    accumulator at the window corner (pos..pos+p on every axis, no mod
-    wrap — the caller folds the pad ring afterwards, exactly like the
-    DMA path).  Used by the halo-sharded windowed sweep, where axis 0 of
-    the accumulator is a slab whose overflow strips ride a ring exchange
-    instead of wrapping locally (parallel/domain.py).
+    padded_acc=True writes into a PADDED accumulator at the window corner
+    (pos..pos+p on every axis, no mod wrap); the caller folds the pad
+    ring afterwards (fold_padded_acc).  Used by the halo-sharded windowed
+    sweep, where axis 0 of the accumulator is a slab whose overflow
+    strips ride a ring exchange instead of wrapping locally
+    (parallel/domain.py).
     """
     n = cfg.mesh[0]
     r = int(radius)
@@ -891,59 +805,26 @@ def windowed_batch(cfg: RunConfig, tables: RadTables, ndhi_pad: jax.Array,
     have_x = nfx is not None
     if not have_x:
         nfx = jnp.zeros_like(nf)
-    use_pallas = False
-    if cfg.sweep_backend == "pallas":
-        from .sweep_pallas import compute_columns_pallas, \
-            pallas_sweep_available
-        use_pallas = pallas_sweep_available(cfgw, lls_pad)
 
-    if dma:
-        # bulk block-DMA gather (ops/window_pallas.py): one strided copy
-        # per window instead of an XLA index-engine gather
-        from .window_pallas import window_gather
-        wins = window_gather(ndhi_pad, pos, r)
-        lwins = (window_gather(lls_pad, pos, r)
-                 if lls_pad is not None else None)
-    else:
-        def window_of(field_pad, q):
-            return lax.dynamic_slice(field_pad, (q[0], q[1], q[2]),
-                                     (p, p, p))
+    def window_of(field_pad, q):
+        return lax.dynamic_slice(field_pad, (q[0], q[1], q[2]), (p, p, p))
 
+    with jax.named_scope("window_gather"):
         wins = jax.vmap(lambda q: window_of(ndhi_pad, q))(pos)
         lwins = (jax.vmap(lambda q: window_of(lls_pad, q))(pos)
                  if lls_pad is not None else None)
     lax_ax = 0 if lls_pad is not None else None
 
-    def rate_one(cdo, win, lwin, f, fx):
-        return _rate_pass(cfgw, tables, cdo, win, f, sc, lwin, r,
-                          nflux_xray=fx if have_x else None)
+    def sweep_one(win, lwin, f, fx):
+        return sweep_single_source(
+            cfgw, tables, win, f, sc, lls_c=lwin, max_shell=r,
+            nflux_xray=fx if have_x else None)
 
-    if use_pallas:
-        cdo_b = compute_columns_pallas(cfgw, wins, sc, r, lls_cb=lwins)
-        res = jax.vmap(rate_one, in_axes=(0, 0, lax_ax, 0, 0))(
-            cdo_b, wins, lwins, nf, nfx)
-    else:
-        def sweep_one(win, lwin, f, fx):
-            return sweep_single_source(
-                cfgw, tables, win, f, sc, lls_c=lwin, max_shell=r,
-                nflux_xray=fx if have_x else None)
-
-        res = jax.vmap(sweep_one, in_axes=(0, lax_ax, 0, 0))(
-            wins, lwins, nf, nfx)
-
-    if dma:
-        # sequential block-DMA read-modify-writes into the PADDED
-        # accumulator (no mod-N indices; the pad ring is folded back
-        # once per pass by fold_padded_acc)
-        from .window_pallas import window_scatter_add
-        acc = window_scatter_add(acc, res.phih, pos)
-        if not cfg.isothermal:
-            heat_acc = window_scatter_add(heat_acc, res.phiheat, pos)
-        return (acc, heat_acc, jnp.sum(res.photon_loss),
-                jnp.sum(res.lls_loss), res.photon_loss)
+    res = jax.vmap(sweep_one, in_axes=(0, lax_ax, 0, 0))(
+        wins, lwins, nf, nfx)
 
     # one scatter-add per batch: windows may overlap each other and
-    # the periodic boundary, so indices are mod-n and duplicates sum
+    # the periodic boundary, so duplicates sum
     ar = jnp.arange(p, dtype=jnp.int32)
     if padded_acc:
         # padded-coordinate scatter (window corner = pos, in bounds by
@@ -951,34 +832,53 @@ def windowed_batch(cfg: RunConfig, tables: RadTables, ndhi_pad: jax.Array,
         ix = pos[:, 0, None] + ar[None, :]            # (b, p)
         iy = pos[:, 1, None] + ar[None, :]
         iz = pos[:, 2, None] + ar[None, :]
-        idx = (ix[:, :, None, None], iy[:, None, :, None],
-               iz[:, None, None, :])
+    else:
+        ix = (pos[:, 0, None] - r + ar[None, :]) % n  # (b, p)
+        iy = (pos[:, 1, None] - r + ar[None, :]) % n
+        iz = (pos[:, 2, None] - r + ar[None, :]) % n
+    idx = (ix[:, :, None, None], iy[:, None, :, None],
+           iz[:, None, None, :])
+    with jax.named_scope("scatter_add"):
         acc = acc.at[idx].add(res.phih, mode="promise_in_bounds")
         if not cfg.isothermal:
             heat_acc = heat_acc.at[idx].add(res.phiheat,
                                             mode="promise_in_bounds")
-        return (acc, heat_acc, jnp.sum(res.photon_loss),
-                jnp.sum(res.lls_loss), res.photon_loss)
-    ix = (pos[:, 0, None] - r + ar[None, :]) % n      # (b, p)
-    iy = (pos[:, 1, None] - r + ar[None, :]) % n
-    iz = (pos[:, 2, None] - r + ar[None, :]) % n
-    idx = (ix[:, :, None, None], iy[:, None, :, None],
-           iz[:, None, None, :])
-    acc = acc.at[idx].add(res.phih, mode="promise_in_bounds")
-    if not cfg.isothermal:
-        heat_acc = heat_acc.at[idx].add(res.phiheat,
-                                        mode="promise_in_bounds")
     return (acc, heat_acc, jnp.sum(res.photon_loss),
             jnp.sum(res.lls_loss), res.photon_loss)
 
 
-def use_window_dma(cfg: RunConfig) -> bool:
-    """True when the windowed path should use the Pallas block-DMA
-    gather/scatter kernels (TPU + pallas backend); the XLA
-    gather/scatter path remains the CPU/test reference."""
-    import jax as _jax
-    return (cfg.sweep_backend == "pallas"
-            and _jax.devices()[0].platform == "tpu")
+def fold_padded_acc(acc_pad: jax.Array, n: int, radius: int,
+                    axes: Tuple[int, ...] = (0, 1, 2)) -> jax.Array:
+    """Fold the r-wide pad ring of an (n+2r)-extent padded accumulator
+    back into the n-extent grid with periodic wrapping: the companion of
+    windowed_batch(padded_acc=True).
+
+    `axes` selects which axes fold locally: the halo-sharded windowed
+    sweep folds axes (1, 2) only, its axis-0 slab overflow strips ride a
+    ring ppermute instead (parallel/domain.py)."""
+    r = radius
+    if r == 0:
+        return acc_pad
+    a = acc_pad
+    # fold axis by axis: low pad adds to the high end, high pad to the low
+    for ax in axes:
+        def take(lo, hi, ax=ax):
+            s: List = [slice(None)] * 3
+            s[ax] = slice(lo, hi)
+            return a[tuple(s)]
+
+        core = take(r, a.shape[ax] - r)
+        lo_pad = take(0, r)
+        hi_pad = take(a.shape[ax] - r, a.shape[ax])
+        m = core.shape[ax]
+        idx_hi: List = [slice(None)] * 3
+        idx_hi[ax] = slice(m - r, m)
+        idx_lo: List = [slice(None)] * 3
+        idx_lo[ax] = slice(0, r)
+        core = core.at[tuple(idx_hi)].add(lo_pad)
+        core = core.at[tuple(idx_lo)].add(hi_pad)
+        a = core
+    return a
 
 
 def raytrace_windowed(cfg: RunConfig, tables: RadTables,
@@ -1001,10 +901,7 @@ def raytrace_windowed(cfg: RunConfig, tables: RadTables,
         unchanged on a virtual (2r+1)^3 mesh,
       * rates scatter back with ONE mod-N scatter-add per batch (windows
         may overlap each other and the periodic boundary; duplicate
-        indices sum) - a single HLO, the only viable shape on a stack
-        with ~0.35 ms fixed cost per op (BENCH_HISTORY.md),
-      * with the Pallas backend the whole r-shell window march is one
-        kernel invocation per batch (compute_columns_pallas).
+        indices sum), a single op per batch instead of one per window.
 
     The window boundary coincides with the max_shell boundary, so the
     escaping-photon tally is exactly the reference's subbox-face loss
@@ -1018,10 +915,8 @@ def raytrace_windowed(cfg: RunConfig, tables: RadTables,
     p = 2 * r + 1
     assert p <= n, "window must fit in the grid; use the full sweep"
     dtype = ndens.dtype
-    dma = use_window_dma(cfg)
 
-    ndhi_pad, lls_pad = windowed_prepass(cfg, ndens, xh_av1, lls_grid, r,
-                                         lane_margin=dma)
+    ndhi_pad, lls_pad = windowed_prepass(cfg, ndens, xh_av1, lls_grid, r)
 
     s = int(srcpos.shape[0])
     b = max(1, min(cfg.source_batch, s))
@@ -1044,24 +939,14 @@ def raytrace_windowed(cfg: RunConfig, tables: RadTables,
         pos, nf, nfx = inp
         acc, heat_acc, lo, ll, per_win = windowed_batch(
             cfg, tables, ndhi_pad, lls_pad, pos, nf,
-            nfx if have_x else None, sc, r, acc, heat_acc, dma=dma)
+            nfx if have_x else None, sc, r, acc, heat_acc)
         return (acc, heat_acc, loss_t + lo, lls_t + ll), per_win
 
-    if dma:
-        from .window_pallas import padded_acc_shape
-        acc_shape = padded_acc_shape(n, r)
-    else:
-        acc_shape = (n, n, n)
-    zero3 = jnp.zeros(acc_shape, dtype)
+    zero3 = jnp.zeros((n, n, n), dtype)
     heat0 = zero3 if not cfg.isothermal else jnp.zeros((), dtype)
     carry0 = (zero3, heat0, jnp.zeros((), dtype), jnp.zeros((), dtype))
     (phih, heat, loss, lls_loss), per_src = lax.scan(
         one_batch, carry0, (srcpos_b, nflux_b, nfx_b))
-    if dma:
-        from .window_pallas import fold_padded_acc
-        phih = fold_padded_acc(phih, n, r)
-        if not cfg.isothermal:
-            heat = fold_padded_acc(heat, n, r)
     return phih, heat, loss, lls_loss, per_src.reshape(-1)[:s]
 
 
@@ -1080,7 +965,7 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
 
     Sources are processed in vmapped batches of cfg.source_batch: the
     shell wavefront loop is shared across the batch (one set of ops per
-    shell, batched planes), which is what keeps the TPU busy - single
+    shell, batched planes), which is what keeps the device busy - single
     sources at small meshes are per-op-overhead-bound.  This is the
     within-device analogue of the reference's OpenMP sector parallelism
     (evolve_source.F90:141-187), but batching whole sources instead of
@@ -1120,8 +1005,7 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
     # batch so the staging working set stays ~<3 GiB regardless of how
     # many sources a caller passes (a promotion to the full-radius rung
     # can deliver thousands)
-    b_mem = max(1, (1 << 30) // (n * n * n * (4 if dtype == jnp.float32
-                                              else 8)))
+    b_mem = full_batch_cap(n, dtype)
     b = max(1, min(cfg.source_batch, s, b_mem))
     nbatch = -(-s // b)
     pad = nbatch * b - s
@@ -1145,39 +1029,14 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
         return lax.dynamic_slice(ext, (start[0], start[1], start[2]),
                                  (n, n, n))
 
-    use_pallas = False
-    use_consume = False
-    use_grid_march = False
-    if cfg.sweep_backend == "pallas":
-        from .sweep_pallas import (compute_columns_pallas,
-                                   consume_available,
-                                   grid_march_available,
-                                   pallas_sweep_available)
-        use_pallas = pallas_sweep_available(cfg, lls_grid)
-        # fused rate deposition (rate pass + grid rolls + batch sum in
-        # one Pallas program); full-cube path only
-        use_consume = (use_pallas and slab is None
-                       and consume_available(cfg, tables, nflux_xray))
-        # grid-frame march (round 5): the march reads SHARED grid-frame
-        # cube views via source-offset index maps — no per-source
-        # centering or transposes.  Only its output (centered cdo
-        # cubes) feeds the consume kernel, so both fuse or neither
-        use_grid_march = (use_consume
-                          and grid_march_available(cfg, d_sweep, lls_grid))
-
-    if use_grid_march:
-        # the grid march needs no centered copies at all
-        ndhi_ext = lls_ext = None
-    else:
-        # Source-centered fields via ONE shared wrap-padded cube +
-        # contiguous dynamic_slice per source: a single DMA instead of
-        # the 3-axis roll's slice+concat passes (bitwise-identical
-        # values; measured 38 ms -> ~8 ms for 16 sources at 256^3).
-        # The (2N-1)^3 pad is amortized over all sources and iterations.
-        pad_w = ((0, n - 1),) * 3
-        ndhi_ext = jnp.pad(ndhi, pad_w, mode="wrap")
-        lls_ext = (jnp.pad(lls_grid, pad_w, mode="wrap")
-                   if lls_grid is not None else None)
+    # Source-centered fields via ONE shared wrap-padded cube + a
+    # contiguous dynamic_slice per source: a single copy instead of the
+    # 3-axis roll's slice+concat passes (bitwise-identical values).  The
+    # (2N-1)^3 pad is amortized over all sources and iterations.
+    pad_w = ((0, n - 1),) * 3
+    ndhi_ext = jnp.pad(ndhi, pad_w, mode="wrap")
+    lls_ext = (jnp.pad(lls_grid, pad_w, mode="wrap")
+               if lls_grid is not None else None)
 
     def _to_grid(field, pos):
         """Return the rate field in grid layout: full roll when the field
@@ -1186,77 +1045,28 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
             return roll3(field, pos - c)
         return jnp.roll(field, (pos[1] - c, pos[2] - c), axis=(1, 2))
 
-    if use_pallas:
-        def _slab_rate(cdo, x, lc, f, fx, pos):
-            fx = fx if have_x else None
-            if slab is None:
-                return _rate_pass(cfg, tables, cdo, x, f, sc, lc, d_sweep,
-                                  nflux_xray=fx)
-            x0, m = slab
-            return _rate_pass(cfg, tables,
-                              _slab_rows_take(cdo, m, x0, pos[0]),
-                              _slab_rows_take(x, m, x0, pos[0]),
-                              f, sc, _slab_rows_take(lc, m, x0, pos[0]),
-                              d_sweep,
-                              row_ci=slab_rows(n, m, x0, pos[0]),
-                              nflux_xray=fx)
-
-        lls_ax = 0 if lls_grid is not None else None
-
-        def vsweep(pos_b, nf_b, nfx_b):
-            if use_grid_march:
-                from .sweep_pallas import compute_columns_pallas_grid
-                cdo_b = compute_columns_pallas_grid(cfg, ndhi, pos_b, sc,
-                                                    d_sweep, lls=lls_grid)
-            else:
-                ndhi_cb = jax.vmap(lambda p: _center(ndhi_ext, p))(pos_b)
-                lls_cb = (jax.vmap(lambda p: _center(lls_ext, p))(pos_b)
-                          if lls_grid is not None else None)
-                cdo_b = compute_columns_pallas(cfg, ndhi_cb, sc, d_sweep,
-                                               lls_cb=lls_cb)
-            if use_consume:
-                # fused consume kernel: rate physics + grid-frame rolls
-                # + batch accumulation in one program, reading the
-                # SHARED grid-frame ndhi/LLS fields (no per-source
-                # copies ever leave the march)
-                from .sweep_pallas import consume_rates_pallas
-                ph, he, lo, ll = consume_rates_pallas(
-                    cfg, tables, cdo_b, ndhi, lls_grid, pos_b, nf_b,
-                    nfx_b if have_x else None, sc, d_sweep)
-                return ph, he, lo, ll
-            res_b = jax.vmap(_slab_rate,
-                             in_axes=(0, 0, lls_ax, 0, 0, 0))(
-                cdo_b, ndhi_cb, lls_cb, nf_b, nfx_b, pos_b)
-            ph = jax.vmap(_to_grid)(res_b.phih, pos_b)
-            he = (jax.vmap(_to_grid)(res_b.phiheat, pos_b)
-                  if not cfg.isothermal else res_b.phiheat)
-            return ph, he, res_b.photon_loss, res_b.lls_loss
-    else:
-        def sweep_one(pos, nf, nfx):
+    def sweep_one(pos, nf, nfx):
+        with jax.named_scope("stage"):
             ndhi_c = _center(ndhi_ext, pos)
             lls_c = (_center(lls_ext, pos) if lls_grid is not None
                      else None)
-            res = sweep_single_source(cfg, tables, ndhi_c, nf, sc,
-                                      lls_c=lls_c, max_shell=max_shell,
-                                      slab=slab, src_x=pos[0],
-                                      nflux_xray=nfx if have_x else None)
+        res = sweep_single_source(cfg, tables, ndhi_c, nf, sc,
+                                  lls_c=lls_c, max_shell=max_shell,
+                                  slab=slab, src_x=pos[0],
+                                  nflux_xray=nfx if have_x else None)
+        with jax.named_scope("deposition"):
             phih_g = _to_grid(res.phih, pos)
             heat_g = (_to_grid(res.phiheat, pos) if not cfg.isothermal
                       else res.phiheat)
-            return phih_g, heat_g, res.photon_loss, res.lls_loss
+        return phih_g, heat_g, res.photon_loss, res.lls_loss
 
-        vsweep = jax.vmap(sweep_one)
+    vsweep = jax.vmap(sweep_one)
 
     def one_batch(carry, inp):
         phih_g, heat_g, loss_t, lls_t = carry
         pos, nf, nfx = inp
         ph, he, lo, ll = vsweep(pos, nf, nfx)
-        if use_consume:
-            # the consume kernel already returns the batch-summed grids
-            phih_g = phih_g + ph
-            if not cfg.isothermal:
-                heat_g = heat_g + he
-        else:
+        with jax.named_scope("deposition"):
             phih_g = phih_g + jnp.sum(ph, axis=0)
             if not cfg.isothermal:
                 heat_g = heat_g + jnp.sum(he, axis=0)
@@ -1269,3 +1079,11 @@ def raytrace_all_sources(cfg: RunConfig, tables: RadTables,
     (phih, heat, loss, lls_loss), per_src_loss = lax.scan(
         one_batch, carry0, (srcpos_b, nflux_b, nfx_b))
     return phih, heat, loss, lls_loss, per_src_loss.reshape(-1)[:s]
+
+
+def full_batch_cap(n: int, dtype) -> int:
+    """Most sources one full-cube batch may stage: the batch's
+    (b, N, N, N) source-centered staging is bounded to ~1 GiB per live
+    copy, a fixed fraction of device memory chosen so that the full-cube
+    path leaves room for the grid state at the meshes one device holds."""
+    return max(1, (1 << 30) // (n * n * n * jnp.dtype(dtype).itemsize))

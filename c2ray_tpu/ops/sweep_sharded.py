@@ -6,7 +6,7 @@ disabled Cartesian topology hints at (mpi.F90:183-275, reorder=.false.
 :69) and SURVEY.md §7.3.3 calls the hard part.  Unlike
 parallel/domain.py's replicated march, here every O(N^3) field —
 including the march state itself — lives sharded, so meshes larger than
-one chip's HBM become tractable and the march work scales 1/ndom.
+one device's memory become tractable and the march work scales 1/ndom.
 
 Key structural facts (derived from the wedge-fixup geometry of
 _wavefront_plane_update, sweep.py:311-406) that make the communication

@@ -37,12 +37,11 @@ class RadTables(NamedTuple):
     derivative -d(thick)/d(tau), used for optically thin cells.
     Reference: radiation_tables.F90:361-430 (integrands), :524-565 (tables).
 
-    exp_a/exp_w: the TPU fast path - a K-term exponential-mixture
+    exp_a/exp_w: the float32 fast path - a K-term exponential-mixture
     compression of the same integral, thick(tau) ~= sum_k w_k e^{-a_k tau}
     (exact in form: the integrand IS a continuous mixture of exponentials
     over the cross-section ratio a = (nu/nu_0)^-2.8).  Evaluating the
-    mixture is pure VPU math, avoiding table gathers which are very slow
-    on TPU.  thin(tau) = sum_k w_k a_k e^{-a_k tau} is its exact
+    mixture is pure elementwise math with no table gathers.  thin(tau) = sum_k w_k a_k e^{-a_k tau} is its exact
     derivative, so photon conservation telescopes identically.
     heat_exp_w: weights of the heating mixture over the same a_k.
     """
@@ -56,7 +55,7 @@ class RadTables(NamedTuple):
     xray_photo_thin: jax.Array
     xray_heat_thick: jax.Array
     xray_heat_thin: jax.Array
-    # exponential-mixture compression (TPU fast path)
+    # exponential-mixture compression (float32 fast path)
     exp_a: jax.Array = None
     exp_w: jax.Array = None
     heat_exp_w: jax.Array = None
@@ -237,11 +236,9 @@ def _refine_mixture_nodes(a0: np.ndarray, w0: np.ndarray,
     trust-region refinement of (log a_k, log w_k) meets the NNLS fit
     error with ~20-30%% fewer exponentials (measured: the 10-term
     test-problem blackbody fit compresses to 8 terms at 3x LOWER max
-    relative error).  Every mixture evaluation on device (the consume
-    kernel, the windowed kernels, the XLA expsum rate pass) pays one
-    exp+expm1 per term per cell, so fewer terms is a direct VPU-floor
-    reduction (BENCH_HISTORY round-5 consume ablations: the mixture is
-    ~72%% of the consume kernel).
+    relative error).  Every mixture evaluation on device (the expsum rate
+    pass, full-cube and windowed) pays one exp+expm1 per term per cell,
+    so fewer terms is a direct reduction of the rate pass's arithmetic.
 
     Accepts the smallest k whose refined max weighted relative error is
     <= the incoming fit's, for BOTH the photo target and (when built)
@@ -391,7 +388,7 @@ def build_rad_tables(cfg: RunConfig) -> RadTables:
         z = np.zeros_like(pt)
         xpt, xpn, xht, xhn = z, z, z, z
 
-    # Exponential-mixture compression for the TPU fast path: quadrature
+    # Exponential-mixture compression for the float32 fast path: quadrature
     # weights W_i = romberg_w * h * SED_i, cross-section ratios
     # ahat_i = (nu_i/nu_min)^-2.8 (radiation_tables.F90:351-353).
     from .romberg import romberg_weights
@@ -442,7 +439,7 @@ def build_rad_tables(cfg: RunConfig) -> RadTables:
 
     # Normalize all tables by S_star: photon rates on device are carried in
     # units of S_star photons/s so that float32 never sees ~1e48-1e57 cgs
-    # magnitudes (a TPU-native design choice; the reference computes in
+    # magnitudes (a design choice of this framework; the reference computes in
     # physical cgs with float64 throughout).  Physical rates are recovered
     # with host-side f64 scale factors (see sweep.py rate_scale).
     s = props.s_star

@@ -48,7 +48,7 @@ from ..ops.thermal import CoolingTable
 def make_domain_mesh(n_src: int, n_dom: int,
                      axis_names=("src", "dom")) -> Mesh:
     """2D device mesh: source data-parallelism x grid-slab domain
-    decomposition.  The TPU analogue of an MPI rank grid the reference
+    decomposition.  The analogue of an MPI rank grid the reference
     builds but never enables (mpi.F90:183-227, reorder=.false. :69)."""
     devs = jax.devices()
     need = n_src * n_dom
@@ -61,10 +61,10 @@ def domain_sharded_raytracer(mesh: Mesh, dom_axis: str = "dom",
                              src_axis: Optional[str] = None):
     """Grid-slab domain decomposition of the ray sweep (parallel phase 2).
 
-    Design (the TPU inversion of the halo-exchange plan the reference's
+    Design (the inversion of the halo-exchange plan the reference's
     Cartesian topology hints at, mpi.F90:183-275): the causal column
     march is op-latency-bound - each shell step is O(N^2) work dominated
-    by fixed per-op cost (BENCH_HISTORY.md), so *sharding it would add a
+    by fixed per-op cost, so *sharding it would add a
     collective per shell and make it slower*.  Instead the march runs
     REPLICATED on every device of the `dom` axis, and everything that is
     O(N^3) FLOP/bandwidth work - coldensh_in reconstruction, the
@@ -155,10 +155,10 @@ def halo_sharded_raytracer(mesh: Mesh, dom_axis: str = "dom",
     physics), every O(N^3) array here — density, ionization, the march
     state, the column field, the rate grids — is a 1/ndom slab, so the
     memory footprint scales down with the mesh axis and grids larger
-    than one chip's HBM become feasible.  The price is two ring
+    than one device's memory become feasible.  The price is two ring
     ppermutes per wavefront shell (boundary halo rows + the x-face
-    plane ownership handoff); on ICI these are tiny (O(N) and O(N^2)
-    payloads) and overlap with the strip compute.
+    plane ownership handoff); these carry small (O(N) and O(N^2))
+    payloads and can overlap with the strip compute.
 
     Input ndens/xh_av1/lls_grid may be host arrays or jax.Arrays; they
     are consumed with P(dom) sharding on grid axis 0 (pass arrays
@@ -329,11 +329,11 @@ class WindowedHaloSweeper:
     big mesh x huge catalog x distributed — with subboxes intact
     (master_slave.F90:74-96, evolve_source.F90:128-212).
 
-    Design (TPU-native, no reference analogue):
+    Design (no reference analogue):
       * each device halo-extends its x-slab of the neutral-density field
         by r rows from both ring neighbors (two ppermutes, O(r N^2)
-        payload on ICI), then wrap-pads axes 1/2 locally — after which
-        ANY window centered in the slab is a contiguous (2r+1)^3 slice,
+        payload on the interconnect), then wrap-pads axes 1/2 locally —
+        after which ANY window centered in the slab is a contiguous (2r+1)^3 slice,
       * sources are dealt host-side to their OWNING slab (and split
         round-robin over the src axis of a 2D mesh), so every window is
         swept exactly once, by the device that holds its rows,
@@ -364,10 +364,8 @@ class WindowedHaloSweeper:
 
     # ------------------------------------------------------------------
     def _program(self, cfg, tables, radius, L, have_x, have_lls):
-        from ..ops.sweep import neutral_density, use_window_dma, \
+        from ..ops.sweep import fold_padded_acc, neutral_density, \
             windowed_batch
-        from ..ops.window_pallas import fold_padded_acc, lane_extent, \
-            sublane_extent, with_lane_margin
 
         key = (radius, L, have_x, have_lls)
         fn = self._cache.get(key)
@@ -379,7 +377,6 @@ class WindowedHaloSweeper:
         m = n // ndom
         r = int(radius)
         dom_axis, src_axis = self.dom_axis, self.src_axis
-        dma = use_window_dma(cfg)
         iso = cfg.isothermal
         total = ndom * nsrc * L
         sb = max(1, cfg.source_batch)
@@ -393,8 +390,7 @@ class WindowedHaloSweeper:
             top = lax.ppermute(x[m - r:], dom_axis, fwd)
             bot = lax.ppermute(x[:r], dom_axis, bwd)
             ext = jnp.concatenate([top, x, bot], axis=0)
-            ext = jnp.pad(ext, ((0, 0), (r, r), (r, r)), mode="wrap")
-            return with_lane_margin(ext, n, r) if dma else ext
+            return jnp.pad(ext, ((0, 0), (r, r), (r, r)), mode="wrap")
 
         def ring_fold(acc):
             # reverse halo exchange: the slab accumulator's overflow
@@ -412,17 +408,12 @@ class WindowedHaloSweeper:
             ext = halo_extend(neutral_density(cfg, ndens_s, xh_s))
             lls_ext = halo_extend(lls_s) if have_lls else None
             # window centers in slab coordinates (= corner in the
-            # extended/padded frame, the windowed_batch DMA convention)
+            # extended/padded frame, the padded_acc convention)
             pos_loc = pos - jnp.stack(
                 [jnp.full((pos.shape[0],), d * m, pos.dtype),
                  jnp.zeros((pos.shape[0],), pos.dtype),
                  jnp.zeros((pos.shape[0],), pos.dtype)], axis=1)
-            if dma:
-                acc_shape = (m + 2 * r, sublane_extent(n, r),
-                             lane_extent(n, r))
-            else:
-                acc_shape = (m + 2 * r, n + 2 * r, n + 2 * r)
-            acc0 = jnp.zeros(acc_shape, dtype)
+            acc0 = jnp.zeros((m + 2 * r, n + 2 * r, n + 2 * r), dtype)
             hacc0 = acc0 if not iso else jnp.zeros((), dtype)
             # dynamic trip count: slabs own different source counts —
             # each device sweeps only its real batches, not the pow2
@@ -442,7 +433,7 @@ class WindowedHaloSweeper:
                 acc, hacc, lo, ll, pw = windowed_batch(
                     cfg, tables, ext, lls_ext, pb, fb,
                     xb if have_x else None, sc, r, acc, hacc,
-                    dma=dma, padded_acc=True)
+                    padded_acc=True)
                 per = lax.dynamic_update_slice(per, pw, (off,))
                 return (acc, hacc, lo_t + lo, ll_t + ll, per)
 

@@ -14,7 +14,7 @@ Four layouts:
   halo  fully domain-decomposed: every O(N^3) field — state, material,
         march, rate grids — lives as a 1/ndom x-slab per device with
         per-shell halo exchange (ops/sweep_sharded.py).  The layout for
-        meshes beyond one chip's HBM (sizes.f90:50-71 runs to 1200^3),
+        meshes beyond one device's memory (sizes.f90:50-71 runs to 1200^3),
         and the Cartesian topology the reference built but never enabled
         (mpi.F90:183-275, reorder=.false. :69).
 

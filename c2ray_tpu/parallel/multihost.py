@@ -1,14 +1,15 @@
 """Multi-process / multi-host runtime bootstrap (parallel phase 3).
 
-TPU-native replacement of the reference's MPI bootstrap across nodes
+Replacement of the reference's MPI bootstrap across nodes
 (/root/reference/mpi.F90:83-178: MPI_INIT + COMM_RANK/COMM_SIZE + the
 rank-0 log setup) and of its rank discipline:
 
   * `init_distributed` wires `jax.distributed.initialize`; afterwards
     `jax.devices()` spans every host, so the existing meshes
     (`parallel.source_shard.make_device_mesh`,
-    `parallel.domain.make_domain_mesh`) lay their collectives over ICI
-    within a host and DCN across hosts with no further changes — the
+    `parallel.domain.make_domain_mesh`) lay their collectives over the
+    interconnect within a host (NVLink) and the network across hosts
+    (NCCL chooses the transport) with no further changes — the
     psum/ppermute layouts ARE the multi-host communication plan.
   * Every file write is gated on process 0 (the reference gates every
     write on `rank == 0`: output.F90:179, sourceprops.F90:154, the logf
@@ -31,8 +32,11 @@ launcher (the `mpirun` analogue):
   C2RAY_NUM_PROCESSES  total number of processes
   C2RAY_PROCESS_ID     this process's id (0-based)
 
-On TPU pods the three are auto-detected by jax.distributed from the
-runtime environment, so only single-host CPU/GPU launches need them.
+Under a cluster launcher that jax.distributed recognises (SLURM, or an
+Open MPI / MPICH `mpirun`) the three are auto-detected from the
+launcher's environment when C2RAY_DISTRIBUTED=1 is set; other launches
+pass them explicitly.  One process can drive all local GPUs of a host,
+so a single-host run needs none of this.
 """
 
 from __future__ import annotations
@@ -53,8 +57,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
     mpi.F90:86-105).
 
     Arguments fall back to the C2RAY_* environment variables; with
-    nothing set, the call is a no-op on CPU/GPU (single-process run) and
-    auto-detects on TPU pods.  Returns True when a multi-process runtime
+    nothing set, the call is a no-op (single-process run); with
+    C2RAY_DISTRIBUTED=1 it auto-detects a recognised cluster launcher.  Returns True when a multi-process runtime
     was initialized.  Safe to call twice (subsequent calls no-op).
     """
     global _initialized
@@ -73,7 +77,7 @@ def init_distributed(coordinator_address: Optional[str] = None,
         process_id = int(env) if env else None
 
     if coordinator_address is None and num_processes is None:
-        # strictly opt-in: C2RAY_DISTRIBUTED=1 requests the TPU pod
+        # strictly opt-in: C2RAY_DISTRIBUTED=1 requests the launcher
         # auto-detection (jax.distributed.initialize with no arguments);
         # without it a single-chip/single-host run stays a no-op, since a
         # bare initialize() fails once the backend is up
@@ -119,7 +123,7 @@ def broadcast_obj(obj: Any = None) -> Any:
     Non-zero processes pass anything (typically None); every process
     returns process 0's value.  Single-process: identity.  The payload
     travels as a device byte array (length first, then data), so it uses
-    the same DCN/ICI fabric as the compute collectives.
+    the same fabric as the compute collectives.
     """
     import jax
 

@@ -1,19 +1,20 @@
 """Source-sharded ray tracing over a device mesh (parallel phase 1).
 
-TPU-native replacement for the reference's MPI source distribution
+Replacement for the reference's MPI source distribution
 (/root/reference/master_slave.F90 static round-robin + dynamic
 master-slave farm, evolve.F90:577-616 ALLREDUCE of the rate grids):
 
   * sources are sharded across the 'src' axis of a jax.sharding.Mesh
     (each device sweeps its subset over the replicated grid),
   * the per-device rate grids and loss scalars are summed with lax.psum
-    over ICI/DCN - the exact analogue of MPI_ALLREDUCE(MPI_SUM),
+    over the device interconnect - the exact analogue of
+    MPI_ALLREDUCE(MPI_SUM),
   * load balance comes from host-side flux-sorted round-robin dealing
     (models/sources.sort_sources_by_flux) instead of the dynamic task
     farm - deterministic and synchronization-free.
 
-Works identically on a real TPU slice and on the virtual CPU mesh used
-in tests (xla_force_host_platform_device_count).
+Works identically on the local accelerators of one host and on the
+virtual CPU mesh used in tests (xla_force_host_platform_device_count).
 """
 
 from __future__ import annotations
@@ -119,9 +120,9 @@ class WindowedShardedSweeper:
     master_slave.F90:74-96 + evolve_source.F90:128-212).
 
     Each device runs the full windowed path (ops.sweep.raytrace_windowed
-    — window gather, r-shell march, scatter-add, DMA kernels on TPU) on
-    its shard of the bucket's sources over the replicated grid; the rate
-    grids and loss scalars take ONE psum per bucket.  Injected into
+    — window gather, r-shell march, scatter-add) on its shard of the
+    bucket's sources over the replicated grid; the rate grids and loss
+    scalars take ONE psum per bucket.  Injected into
     Evolve3D via `windowed=`; `axes` may span several mesh axes (the dom
     layout shards windowed sources over its whole src x dom device grid,
     since windows never touch the slab structure of its rate physics).
@@ -144,17 +145,14 @@ class WindowedShardedSweeper:
             return fn
         axes = self.axes if len(self.axes) > 1 else self.axes[0]
         L = total // self.ndev
-        from ..ops.sweep import use_window_dma, windowed_batch, \
-            windowed_prepass
+        from ..ops.sweep import windowed_batch, windowed_prepass
 
         def local(ndens, xh_av1, pos, nf, nfx, count, sc, lls):
             n = cfg.mesh[0]
             r = radius
             dtype = ndens.dtype
-            dma = use_window_dma(cfg)
             ndhi_pad, lls_pad = windowed_prepass(
-                cfg, ndens, xh_av1, lls if have_lls else None, r,
-                lane_margin=dma)
+                cfg, ndens, xh_av1, lls if have_lls else None, r)
             sb = max(1, cfg.source_batch)
             b = min(L, 1 << (sb.bit_length() - 1))
             # the per-device source arrays are padded to the pow2
@@ -163,12 +161,7 @@ class WindowedShardedSweeper:
             # the last partial batch are never swept (a 10k bucket at
             # capacity 16384 would otherwise waste ~60% of the pass)
             nb = (count[0] + b - 1) // b
-            if dma:
-                from ..ops.window_pallas import (fold_padded_acc,
-                                                 padded_acc_shape)
-                acc0 = jnp.zeros(padded_acc_shape(n, r), dtype)
-            else:
-                acc0 = jnp.zeros((n, n, n), dtype)
+            acc0 = jnp.zeros((n, n, n), dtype)
             hacc0 = acc0 if not iso else jnp.zeros((), dtype)
 
             def body(ci, carry):
@@ -182,19 +175,14 @@ class WindowedShardedSweeper:
                 xb = lax.dynamic_slice(nfx, (off,), (b,))
                 acc, hacc, lo, ll, pw = windowed_batch(
                     cfg, tables, ndhi_pad, lls_pad, pb, fb,
-                    xb if have_x else None, sc, r, acc, hacc, dma=dma)
+                    xb if have_x else None, sc, r, acc, hacc)
                 per = lax.dynamic_update_slice(per, pw, (off,))
                 return (acc, hacc, lo_t + lo, ll_t + ll, per)
 
             zero = jnp.zeros((), dtype)
-            acc, hacc, loss, lls_loss, per = lax.fori_loop(
+            phih, heat, loss, lls_loss, per = lax.fori_loop(
                 0, nb, body, (acc0, hacc0, zero, zero,
                               jnp.zeros((L,), dtype)))
-            if dma:
-                phih = fold_padded_acc(acc, n, r)
-                heat = (fold_padded_acc(hacc, n, r) if not iso else hacc)
-            else:
-                phih, heat = acc, hacc
             # MPI_ALLREDUCE(SUM) analogue, one per bucket
             phih = lax.psum(phih, axes)
             if not iso:

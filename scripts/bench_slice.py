@@ -31,10 +31,10 @@ def main():
     args = ap.parse_args()
 
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from c2ray_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from c2ray_tpu.config import test_problem_config
     from c2ray_tpu.driver import C2RayDriver, DriverConfig
@@ -43,9 +43,8 @@ def main():
     n = args.mesh
     platform = jax.devices()[0].platform
     cfg = test_problem_config(
-        mesh=n, dtype="float32" if platform == "tpu" else "float64",
-        use_lls=True, type_of_lls=1, cosmological=True,
-        sweep_backend="pallas" if platform == "tpu" else "facemajor")
+        mesh=n, dtype="float32" if platform == "gpu" else "float64",
+        use_lls=True, type_of_lls=1, cosmological=True)
 
     rng = np.random.default_rng(0)
     tmp = tempfile.mkdtemp(prefix="bench_slice_")

@@ -1,8 +1,8 @@
 """Populate the persistent compilation cache for a production run.
 
-Cold XLA:TPU compiles at production meshes are minutes (512^3 Pallas
-193 s, 600^3 579 s — BENCH_HISTORY.md); the persistent cache makes every
-subsequent process start instantly.  This script compiles (lowers, no
+Cold XLA compiles of the production programs take a long time at large
+meshes; the persistent cache makes every subsequent process start
+without them.  This script compiles (lowers, no
 full-size execution beyond one warmup step) every jit signature a driver
 run will hit — sweep buckets of the adaptive ladder, the windowed batch
 kernel, chemistry, counts — so the real run never stalls on a compile.
@@ -10,7 +10,7 @@ kernel, chemistry, counts — so the real run never stalls on a compile.
 Run once per (mesh, dtype, backend, batch) configuration, e.g. overnight
 or while staging input data:
 
-    python scripts/precompile.py --mesh 600 --backend pallas
+    python scripts/precompile.py --mesh 600
     python scripts/precompile.py --mesh 256 --windowed-radii 4 8 16
 
 The cache key includes the XLA flags and jaxlib version; re-run after
@@ -31,8 +31,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--mesh", type=int, default=256)
     ap.add_argument("--dtype", default="float32")
-    ap.add_argument("--backend", default="auto",
-                    choices=["auto", "facemajor", "grid", "pallas"])
+    ap.add_argument("--backend", default="facemajor",
+                    choices=["facemajor", "grid"])
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--sources", type=int, default=16,
                     help="full-sweep vmap width to compile")
@@ -41,13 +41,13 @@ def main():
                     help="windowed-sweep radii to compile (default: the "
                          "adaptive ladder below N/2)")
     ap.add_argument("--isothermal", action="store_true", default=True)
-    ap.add_argument("--cache-dir", default="/tmp/jax_cache")
     args = ap.parse_args()
 
     import jax
-    jax.config.update("jax_compilation_cache_dir", args.cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
     import jax.numpy as jnp
+
+    from c2ray_tpu.utils.compile_cache import enable_compile_cache
+    cache = enable_compile_cache()
 
     from c2ray_tpu.config import test_problem_config
     from c2ray_tpu.ops.sweep import SweepScalars, raytrace_all_sources
@@ -55,9 +55,6 @@ def main():
 
     n = args.mesh
     backend = args.backend
-    if backend == "auto":
-        backend = ("pallas" if jax.devices()[0].platform == "tpu"
-                   else "facemajor")
     cfg = test_problem_config(mesh=n, dtype=args.dtype, use_lls=True,
                               type_of_lls=1, cosmological=False,
                               isothermal=args.isothermal,
@@ -94,7 +91,7 @@ def main():
         print(f"  {label:36s} {time.time()-t0:7.1f} s", flush=True)
 
     print(f"precompiling mesh={n}^3 dtype={args.dtype} backend={backend} "
-          f"batch={args.batch} cache={args.cache_dir}", flush=True)
+          f"batch={args.batch} cache={cache}", flush=True)
     for r in radii:
         # padded pow-2 bucket capacities the adaptive path uses
         compile_one(f"windowed r={r} batch={args.batch}",

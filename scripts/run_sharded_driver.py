@@ -36,6 +36,9 @@ import numpy as np
 import jax
 
 jax.config.update("jax_platforms", "cpu")
+from c2ray_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def rss_gb():

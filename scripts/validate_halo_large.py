@@ -31,6 +31,9 @@ import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 jax.config.update("jax_platforms", "cpu")
+from c2ray_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def rss_gb():

@@ -90,7 +90,7 @@ class TestOnesrcGolden:
                                    rtol=1e-9, atol=1e-12)
 
     def test_float32_expsum_tracks_golden(self):
-        """The TPU fast path (f32 + exponential-mixture rates) reproduces
+        """The float32 path (f32 + exponential-mixture rates) reproduces
         the golden to documented tolerances (PARITY.md)."""
         g = load_golden("golden_onesrc_100.npz")
         state, infos = run_fixture(

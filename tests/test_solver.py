@@ -137,7 +137,7 @@ class TestMultiSource:
                 assert x[pos[0], pos[1], pos[2]] > 0.9, (pos, flux)
 
     def test_float32_matches_float64(self):
-        """The f32 (TPU) path reproduces f64 mean ionization to ~1e-3."""
+        """The f32 production path reproduces f64 mean ionization to ~1e-3."""
         results = {}
         for dtype in ("float64", "float32"):
             n = 16
